@@ -1,9 +1,10 @@
-"""data_compression_tpu — a TPU-native lossless codec family.
+"""data_compression_tpu — a lossless codec family in JAX.
 
-A brand-new JAX/XLA/Pallas framework reproducing the capabilities of the
-reference repo ``carycode/data_compression`` (three codec families:
-n-ary canonical Huffman, 16-context MTF nybble packing, and context-keyed
-LZW "small" codecs), re-designed TPU-first:
+A JAX/XLA framework, with a Pallas (Triton) decode kernel for NVIDIA
+GPUs, reproducing the capabilities of the reference repo
+``carycode/data_compression`` (three codec families: n-ary canonical
+Huffman, 16-context MTF nybble packing, and context-keyed LZW "small"
+codecs), re-designed for data-parallel devices:
 
 * inputs are split into independent fixed-size blocks laid out as
   ``[num_blocks, block_size]`` and sharded data-parallel over a

@@ -123,7 +123,6 @@ def decompress(data: BytesLike, config: Optional[CodecConfig] = None) -> bytes:
         chunk_syms=chunk_syms,
         shared_table=frame.shared_table is not None,
         use_device=(config.use_device if config else True),
-        use_pallas=(config.use_pallas if config else True),
         use_scan=(config.use_scan if config else False),
     )
     codec = get_codec(cfg)

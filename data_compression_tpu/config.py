@@ -29,8 +29,8 @@ DEFAULT_BLOCK_SIZE = 64 * 1024
 
 # Default chunk: the unit of intra-block parallelism for Huffman
 # encode/decode. Each chunk's payload starts byte-aligned. 512 makes a
-# 64 KiB block exactly 128 chunks — one VPU lane each in the Pallas
-# encode kernel (ops/pallas/encode_kernel.py).
+# 64 KiB block exactly 128 chunks — one program of the GPU decode
+# kernel (ops/decode_kernel.py), one thread per chunk.
 DEFAULT_CHUNK_SYMS = 512
 
 # Huffman code lengths must stay below 16 digits; the reference asserts
@@ -57,7 +57,7 @@ def _digits_per_byte(n: int) -> int:
 
 def _arity_cap(n: int) -> int:
     """Length cap: code values and scaled decode windows must fit in
-    int32 on device (TPU int64 is off by default): n^cap < 2^31; and
+    int32 on device (JAX's int64 is off by default): n^cap < 2^31; and
     the global MAX_CODE_LEN mirrors the reference's < 16 assertion."""
     cap = 1
     while n ** (cap + 1) < 2**31:
@@ -92,7 +92,6 @@ class CodecConfig:
     arity: int = 2
     block_size: int = DEFAULT_BLOCK_SIZE
     chunk_syms: int = DEFAULT_CHUNK_SYMS
-    use_pallas: bool = True  # fused TPU kernels when shapes/backend allow
     shared_table: bool = False
     use_device: bool = True
     # Serial-state codecs (nybble/small): the lax.scan device paths are

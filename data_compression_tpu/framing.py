@@ -333,7 +333,7 @@ def read_frame(stream) -> Optional[bytes]:
     independent frames (gzip-member style), so unbounded inputs never
     need to be resident: compress_stream emits a frame per bounded
     batch and decompress_stream consumes them one at a time — the
-    TPU-era version of the reference's 65,000-byte stdin loop
+    batched version of the reference's 65,000-byte stdin loop
     (n_ary_huffman.c:2508-2580).  In-band printable containers
     (PRINTABLE_MAGIC) are detected per frame and returned as their
     binary equivalent, so binary and printable frames may even be

@@ -13,8 +13,8 @@ host table stage across the block axis:
     shortest-to-longest, symbol-order convention as
     canonical.lengths_to_codes (n_ary_huffman.c:1382-1612), as [B, ...]
     array ops.
-  * ``packed_rows`` / ``dense_rows`` / ``decode_rows``: the encode- and
-    decode-side device table layouts, batched.
+  * ``packed_rows`` / ``decode_rows``: the encode- and decode-side
+    device table layouts, batched.
 
 `TableBatch.table(i)` adapts one row back to a `CanonicalTable` for the
 per-block host paths, guaranteeing a single source of truth.
@@ -186,32 +186,6 @@ def packed_rows(tb: TableBatch):
         digit = (codes // np.int64(n) ** place) % n
         packed |= np.where(m < lens, digit << (m * bpd), 0).astype(np.uint64)
     return packed.astype(np.uint32), (lens * bpd).astype(np.int32)
-
-
-def dense_rows(tb: TableBatch) -> np.ndarray:
-    """Batched pallas.encode_kernel.prep_tables dense lookup rows:
-    [B, R, 128] int32 (R = 2 packed or 4 split)."""
-    from data_compression_tpu.ops.encode_fast import BITS_PER_DIGIT
-    from data_compression_tpu.ops.pallas.encode_kernel import PACKED_LEN_SHIFT
-
-    B, S = tb.lengths.shape
-    assert S == 256
-    sh = PACKED_LEN_SHIFT.get(tb.arity)
-    bpd = BITS_PER_DIGIT[tb.arity]
-    pt, bt = packed_rows(tb)
-    pt = np.where(bt > 0, pt, 0)
-    if sh is not None:
-        digits = bt.astype(np.int64) // bpd
-        assert int(digits.max(initial=0)) * bpd <= sh
-        packed = ((digits << sh) | pt.astype(np.int64)).astype(np.int32)
-        return packed.reshape(B, 2, 128)
-    return np.concatenate(
-        [
-            pt.astype(np.int32).reshape(B, 2, 128),
-            bt.astype(np.int32).reshape(B, 2, 128),
-        ],
-        axis=1,
-    )
 
 
 def decode_rows(tb: TableBatch, pad_to: int):

@@ -15,7 +15,7 @@ Verified against the reference's own unit-test vectors
 The decode side uses the standard canonical trick the reference gestures
 at (n_ary_huffman.c:1509-1528): per-length first-code values + a base
 index into the length-sorted symbol list, so decoding is a handful of
-comparisons — branch-free and vectorizable on TPU.
+comparisons — branch-free and vectorizable.
 """
 
 from __future__ import annotations

@@ -3,7 +3,7 @@
 The reference's north-star scheme (n_ary_huffman.c).  Table
 construction follows the reference exactly (huffman/tree.py,
 huffman/canonical.py — parity-tested against n_ary_huffman.c:2821-2891);
-the bitstream is our own TPU-native design because the reference's
+the bitstream is our own chunk-parallel design because the reference's
 emission is stubbed (``assert(0)`` at n_ary_huffman.c:1661,:1786 — it
 never produced a stream).
 
@@ -20,15 +20,15 @@ Block payload layout (all little-endian):
 
 Chunks are ``chunk_syms`` consecutive symbols; per-chunk byte lengths
 make decode embarrassingly parallel (the design the reference sketches
-at small_compression.c:924-927).  Device encode/decode paths live in
-ops/huffman_coding.py; the numpy host path below is the bit-exact
-oracle used by differential tests.
+at small_compression.c:924-927).  Device encode is ops/encode_fast
+(merge tree + compaction in one jit); device decode is
+ops/decode_kernel.decode_chunks (the GPU kernel on a GPU, the XLA
+decode elsewhere).  The numpy host path below is the bit-exact oracle
+used by differential tests.
 """
 
 from __future__ import annotations
 
-import functools
-import logging
 import struct
 from typing import List, Optional, Tuple
 
@@ -45,29 +45,6 @@ from data_compression_tpu.huffman.canonical import (
 )
 from data_compression_tpu.huffman.tree import huffman_lengths
 from data_compression_tpu.models.base import Codec, EncodeResult
-
-
-_log = logging.getLogger("data_compression_tpu")
-_fallback_warned: set = set()
-
-
-def _note_pallas_fallback(kind: str, reasons: List[str]) -> None:
-    """Loud fallback: when ``use_pallas=True`` but the fused kernel's
-    preconditions don't hold, say so ONCE per distinct reason set — a
-    user benchmarking an unsupported config must not mistake the XLA
-    path's number for the advertised kernel's."""
-    key = (kind, tuple(reasons))
-    if key in _fallback_warned:
-        return
-    _fallback_warned.add(key)
-    msg = (
-        f"pallas {kind} fast path unavailable ({'; '.join(reasons)}); "
-        "falling back to the XLA path (several x slower)"
-    )
-    if reasons == ["backend is not tpu"]:
-        _log.info(msg)  # expected off-TPU; don't spam test/CPU runs
-    else:
-        _log.warning(msg)
 
 
 def capped_lengths(freqs: np.ndarray, arity: int) -> np.ndarray:
@@ -197,97 +174,6 @@ def _unpack_payload(payload: bytes) -> Tuple[Optional[bytes], List[bytes]]:
     return table_bytes, chunks
 
 
-_jit_cache: dict = {}
-
-
-def _encode_blockcompact_fused(
-    syms_t, dense, meta, *, arity, maxlen, chunk_syms, cap_w
-):
-    """ONE device dispatch for the whole encode at n=2/16: Pallas
-    kernel with in-VMEM cross-lane chunk concatenation (block-contiguous
-    payloads) -> ordered-DMA block compaction to 1024-aligned offsets.
-    Returns (flat int32 words [cap_w + NW], per-chunk byte counts
-    [B*128]); the host computes the same 1024-aligned block offsets
-    from the byte counts and slices exact payloads."""
-    import jax
-    import jax.numpy as jnp
-
-    from data_compression_tpu.ops.pallas.compact_kernel import (
-        compact_block_rows,
-    )
-    from data_compression_tpu.ops.pallas.encode_kernel import (
-        LANES,
-        _encode_pallas_compact,
-    )
-
-    if "bc" not in _jit_cache:
-
-        @functools.partial(
-            jax.jit,
-            static_argnames=("arity", "maxlen", "chunk_syms", "out_cap_w"),
-        )
-        def fn(syms_t, dense, meta, *, arity, maxlen, chunk_syms, out_cap_w):
-            words, nbd = _encode_pallas_compact(
-                syms_t, dense, meta, arity=arity, maxlen=maxlen,
-                chunk_syms=chunk_syms,
-            )
-            B, _, Wf = words.shape
-            digits = jnp.transpose(nbd, (0, 2, 1)).reshape(B, LANES)
-            D = ARITY_DIGITS_PER_BYTE[arity]
-            nb = -(-digits // D)  # [B, 128] wire bytes per chunk
-            block_bytes = nb.sum(axis=1)
-            padded_w = -(-block_bytes // 4096) * 1024  # 4-KiB-aligned words
-            starts_w = jnp.concatenate(
-                [jnp.zeros(1, jnp.int32), jnp.cumsum(padded_w)[:-1]]
-            ).astype(jnp.int32)
-            flat = compact_block_rows(
-                words.reshape(B, LANES * Wf), starts_w, out_cap_w
-            )
-            return flat, nb
-
-        _jit_cache["bc"] = fn
-    return _jit_cache["bc"](
-        syms_t, dense, meta, arity=arity, maxlen=maxlen,
-        chunk_syms=chunk_syms, out_cap_w=cap_w,
-    )
-
-
-def _encode_compact_fused(syms_t, dense, meta, *, arity, maxlen, chunk_syms, cap):
-    """ONE device dispatch for the whole encode: Pallas kernel ->
-    chunk-major transpose -> on-device compaction.  Returns (flat wire
-    bytes [cap], per-chunk byte counts [B*128]); the host fetches both
-    in a single device_get, so the encode path costs exactly one
-    dispatch + one download after the histogram."""
-    import jax
-    import jax.numpy as jnp
-
-    from data_compression_tpu.ops.compaction import compact_rows
-    from data_compression_tpu.ops.pallas.encode_kernel import _encode_pallas
-
-    if "ec" not in _jit_cache:
-
-        @functools.partial(
-            jax.jit, static_argnames=("arity", "maxlen", "chunk_syms", "out_cap")
-        )
-        def fn(syms_t, dense, meta, *, arity, maxlen, chunk_syms, out_cap):
-            byts, nbd = _encode_pallas(
-                syms_t, dense, meta, arity=arity, maxlen=maxlen,
-                chunk_syms=chunk_syms,
-            )
-            B, MB, LN = byts.shape
-            rows = jnp.transpose(byts, (0, 2, 1)).reshape(B * LN, MB)
-            digits = jnp.transpose(nbd, (0, 2, 1)).reshape(B * LN)
-            D = ARITY_DIGITS_PER_BYTE[arity]
-            nb = -(-digits // D)
-            return compact_rows(rows, nb, out_cap), nb
-
-        _jit_cache["ec"] = fn
-    return _jit_cache["ec"](
-        syms_t, dense, meta, arity=arity, maxlen=maxlen,
-        chunk_syms=chunk_syms, out_cap=cap,
-    )
-
-
 # ----------------------------------------------------------------------
 # Codec
 # ----------------------------------------------------------------------
@@ -312,19 +198,22 @@ class HuffmanCodec(Codec):
 
         from data_compression_tpu.huffman import batched as hb
 
-        # Histograms: device-parallel, host fallback for tiny batches.
-        # The device array is kept and reused by the encode kernel so
-        # the stream is uploaded exactly once.
+        # Histograms on the device; the device array is kept and reused
+        # by the encode so the stream is uploaded exactly once.
         dev_blocks = None
         if self.config.use_device:
-            from data_compression_tpu.ops.histogram import block_histograms
+            import jax
             import jax.numpy as jnp
 
-            from data_compression_tpu.utils.transfer import to_device
+            from data_compression_tpu.ops.histogram import block_histograms
+            from data_compression_tpu.utils.jit_cache import (
+                enable_persistent_cache,
+            )
 
-            dev_blocks = to_device(blocks)
+            enable_persistent_cache()
+            dev_blocks = jax.device_put(blocks)
             hists = np.asarray(
-                block_histograms(dev_blocks, jnp.asarray(lengths))
+                block_histograms(dev_blocks, jnp.asarray(lengths, jnp.int32))
             ).astype(np.int64)
         else:
             hists = np.stack(
@@ -349,12 +238,9 @@ class HuffmanCodec(Codec):
         # they ride the digit-generic host path regardless of
         # use_device; 2/3/16 get the device/native fast paths.
         if self.config.use_device and arity in FAST_ARITIES:
-            fast = self._encode_device_compact(dev_blocks, lengths, tb, hists)
-            if fast is not None:
-                return EncodeResult(payloads=fast, shared_table=shared_table_bytes)
-            chunk_payloads = self._encode_device(dev_blocks, lengths, tb)
-        else:
-            chunk_payloads = self._encode_host(blocks, lengths, tb)
+            payloads = self._encode_device(dev_blocks, lengths, tb, hists)
+            return EncodeResult(payloads=payloads, shared_table=shared_table_bytes)
+        chunk_payloads = self._encode_host(blocks, lengths, tb)
 
         shared = self.config.shared_table
         table_rows = None if shared else tb.table_bytes()
@@ -370,8 +256,6 @@ class HuffmanCodec(Codec):
         nb: np.ndarray,  # [B, ncb] per-chunk wire bytes
         raw_lens: np.ndarray,
         tb,
-        block_start: Optional[np.ndarray] = None,  # [B+1] byte offsets of
-        #   each block's payload in ``flat`` (default: tight cumsum)
     ) -> List[bytes]:
         """Vectorized _pack_payload over all blocks: byte-identical
         frames, no per-chunk Python objects."""
@@ -379,9 +263,8 @@ class HuffmanCodec(Codec):
         C = self.config.chunk_syms
         n_real = np.maximum(1, -(-raw_lens // C)).astype(np.int64)
         block_data = nb.sum(axis=1)
-        if block_start is None:
-            block_start = np.zeros(B + 1, np.int64)
-            np.cumsum(block_data, out=block_start[1:])
+        block_start = np.zeros(B + 1, np.int64)
+        np.cumsum(block_data, out=block_start[1:])
         shared = self.config.shared_table
         table_rows = None if shared else tb.table_bytes()
         lens16 = nb.astype("<u2")
@@ -399,32 +282,6 @@ class HuffmanCodec(Codec):
             )
             payloads.append(b"".join(parts))
         return payloads
-
-    def _pallas_geom_ok(self) -> bool:
-        import jax
-
-        from data_compression_tpu.ops.pallas.encode_kernel import LANES
-
-        S = self.config.block_size
-        C = self.config.chunk_syms
-        lane_c = S // LANES
-        ok = (
-            jax.default_backend() == "tpu"
-            and S % LANES == 0
-            and C == lane_c
-            and C >= 128
-            and C & (C - 1) == 0
-        )
-        if self.config.use_pallas and not ok:
-            reasons = []
-            if jax.default_backend() != "tpu":
-                reasons.append("backend is not tpu")
-            if S % LANES or C != lane_c:
-                reasons.append(f"chunk_syms {C} != block_size/128 ({S}/{LANES})")
-            if C < 128 or C & (C - 1):
-                reasons.append(f"chunk_syms {C} not a power of two >= 128")
-            _note_pallas_fallback("encode", reasons)
-        return ok
 
     def _encode_host(self, blocks, lengths, tb) -> List[List[bytes]]:
         from data_compression_tpu import native
@@ -455,134 +312,41 @@ class HuffmanCodec(Codec):
             out.append(chunks)
         return out
 
-    def _encode_device_compact(
-        self, dev_blocks, lengths, tb, hists
-    ) -> Optional[List[bytes]]:
-        """Fused fast path: Pallas encode + on-device compaction in ONE
-        dispatch; the host downloads only the compressed bytes (cap
-        bounded from the histograms, no extra round trip) and assembles
-        frames from one contiguous buffer.  None when the kernel
-        geometry does not apply (caller falls back to the XLA path)."""
-        if not self._pallas_geom_ok():
-            return None
-        import jax
+    def _encode_device(self, dev_blocks, lengths, tb, hists) -> List[bytes]:
+        """Merge-tree encode + payload compaction in one jit; the host
+        downloads only the compressed bytes (capacity bounded from the
+        histograms) and assembles frames from one contiguous buffer."""
         import jax.numpy as jnp
 
-        from data_compression_tpu.config import ARITY_MAX_LEN as _AML
         from data_compression_tpu.huffman import batched as hb
         from data_compression_tpu.ops.compaction import round_cap
-        from data_compression_tpu.ops.pallas.encode_kernel import (
-            LANES,
-            MAXLEN_BUCKETS,
-        )
+        from data_compression_tpu.ops.encode_fast import encode_blocks_compact
 
         arity = self.config.arity
         B, S = dev_blocks.shape
         C = self.config.chunk_syms
         D = ARITY_DIGITS_PER_BYTE[arity]
-        ncb = S // C
-
-        dense = hb.dense_rows(tb)
-        meta = np.stack(
-            [tb.n_used, np.asarray(lengths, np.int32)], axis=1
-        ).astype(np.int32)
-        actual_max = int(tb.max_len.max(initial=0))
-        maxlen = min(
-            next((m for m in MAXLEN_BUCKETS if m >= actual_max), _AML[arity]),
-            _AML[arity],
-        )
         # exact capacity bound from the histograms: per-block digit
         # totals are sum(freq * len) (the reference's
         # find_compressed_data_size, n_ary_huffman.c:2466-2506); chunk
         # byte-rounding adds < 1 byte per chunk
         block_digits = (hists * tb.lengths.astype(np.int64)).sum(axis=1)
-        bound = int((-(-block_digits // D)).sum()) + B * ncb
-
-        from data_compression_tpu.utils.transfer import from_device
-
-        syms_t = jnp.transpose(dev_blocks.reshape(B, LANES, C), (0, 2, 1))
-        if arity in (2, 3, 16):
-            # block-compact path: chunk payloads concatenated in VMEM,
-            # blocks at 1024-aligned offsets (<= 2.6% transfer slack);
-            # n=3 repacks trits to wire bytes in-kernel first
-            cap_w = round_cap(bound + B * 4096) // 4
-            flat_d, nb_d = _encode_blockcompact_fused(
-                syms_t,
-                jnp.asarray(dense),
-                jnp.asarray(meta),
-                arity=arity,
-                maxlen=maxlen,
-                chunk_syms=C,
-                cap_w=cap_w,
-            )
-            nb = np.asarray(nb_d).astype(np.int64)  # [B, 128]
-            block_bytes = nb.sum(axis=1)
-            padded = -(-block_bytes // 4096) * 4096
-            block_start = np.zeros(B + 1, np.int64)
-            np.cumsum(padded, out=block_start[1:])
-            flat = from_device(
-                flat_d[: (block_start[B] // 4)]
-            ).view(np.uint8)
-            return self._assemble_payloads(
-                flat, nb, np.asarray(lengths, np.int64), tb,
-                block_start=block_start,
-            )
-        cap = round_cap(bound)
-        flat_d, nb_d = _encode_compact_fused(
-            syms_t,
-            jnp.asarray(dense),
-            jnp.asarray(meta),
-            arity=arity,
-            maxlen=maxlen,
-            chunk_syms=C,
-            cap=cap,
-        )
-        nb = np.asarray(nb_d).reshape(B, LANES).astype(np.int64)
-        flat = from_device(flat_d)
-        total = int(nb.sum())
-        return self._assemble_payloads(
-            flat[:total], nb, np.asarray(lengths, np.int64), tb
-        )
-
-    def _encode_device(self, dev_blocks, lengths, tb) -> List[List[bytes]]:
-        import jax.numpy as jnp
-
-        from data_compression_tpu.huffman import batched as hb
-        from data_compression_tpu.ops.encode_fast import encode_chunks_fast
-
-        B, S = dev_blocks.shape
-        C = self.config.chunk_syms
-        arity = self.config.arity
-
-        ncb = S // C  # chunks per (full) block
-        syms = dev_blocks.reshape(B * ncb, C)
-        counts = np.clip(
-            np.asarray(lengths)[:, None] - np.arange(ncb)[None, :] * C, 0, C
-        ).reshape(-1)
-        tbl_of_chunk = np.repeat(np.arange(B, dtype=np.int32), ncb)
+        bound = int((-(-block_digits // D)).sum()) + B * (S // C)
         pt, bt = hb.packed_rows(tb)
-
-        packed, nbytes, _ = encode_chunks_fast(
-            syms,
-            jnp.asarray(counts, jnp.int32),
+        flat_d, nb_d = encode_blocks_compact(
+            dev_blocks,
+            jnp.asarray(lengths, jnp.int32),
             jnp.asarray(pt),
             jnp.asarray(bt),
-            jnp.asarray(tbl_of_chunk),
             arity=arity,
             chunk_syms=C,
+            out_cap=round_cap(bound),
         )
-        packed = np.asarray(packed)
-        nbytes = np.asarray(nbytes)
-
-        out = []
-        for i in range(B):
-            n_real = len(self._chunk_counts(int(lengths[i])))
-            chunks = []
-            for c in range(n_real):
-                k = i * ncb + c
-                chunks.append(packed[k, : int(nbytes[k])].tobytes())
-            out.append(chunks)
-        return out
+        nb = np.asarray(nb_d).astype(np.int64)
+        flat = np.asarray(flat_d[: int(nb.sum())])
+        return self._assemble_payloads(
+            flat, nb, np.asarray(lengths, np.int64), tb
+        )
 
     # -------------------------- decode --------------------------------
 
@@ -670,153 +434,48 @@ class HuffmanCodec(Codec):
 
     def _decode_device_vec(self, payloads, raw_lens, shared_table):
         import jax
-
-        from data_compression_tpu.huffman import batched as hb
-
-        arity = self.config.arity
-        C = self.config.chunk_syms
-        S = self.config.block_size
-
-        rows, nb, flat = self._parse_payloads_vec(
-            payloads, raw_lens, shared_table
-        )
-        tb = hb.tables_from_bytes(rows, arity)
-
-        from data_compression_tpu.ops.pallas.decode_kernel import (
-            DEC_ARITIES,
-            LANES,
-        )
-
-        lane_c = S // LANES
-        pallas_ok = (
-            jax.default_backend() == "tpu"
-            and arity in DEC_ARITIES
-            and S % LANES == 0
-            and C == lane_c
-            and C >= 128
-            and C & (C - 1) == 0
-        )
-        if self.config.use_pallas and not pallas_ok:
-            reasons = []
-            if jax.default_backend() != "tpu":
-                reasons.append("backend is not tpu")
-            if arity not in DEC_ARITIES:
-                reasons.append(f"arity {arity} not in {DEC_ARITIES}")
-            if S % LANES or C != lane_c:
-                reasons.append(f"chunk_syms {C} != block_size/128 ({S}/{LANES})")
-            if C < 128 or C & (C - 1):
-                reasons.append(f"chunk_syms {C} not a power of two >= 128")
-            _note_pallas_fallback("decode", reasons)
-        if self.config.use_pallas and pallas_ok:
-            return self._decode_pallas_vec(tb, nb, flat, raw_lens)
-        return self._decode_xla_vec(tb, nb, flat, raw_lens)
-
-    def _decode_pallas_vec(self, tb, nb, flat, raw_lens):
-        from data_compression_tpu.huffman import batched as hb
-        from data_compression_tpu.ops.pallas import decode_kernel as dk
-
-        arity = self.config.arity
-        C = self.config.chunk_syms
-        B = nb.shape[0]
-        _, _, mbp_cap, _, _ = dk._geom(C, arity)
-        if int(nb.max(initial=0)) > mbp_cap:
-            raise ValueError("huffman chunk payload too large")
-        _, _, dpb, L = dk._adim(arity)
-        G8, LANES, SEG = dk.G8, dk.LANES, dk.SEG
-        NC = -(-B // G8)
-        BP = NC * G8
-
-        # payload buffer sized to the batch max (bucketed), not the
-        # worst-case capacity: upload ~= compressed bytes
-        nseg_req = max(1, -(-(int(nb.max(initial=1)) * dpb) // SEG))
-        nseg_cap = dk.seg_bucket(C, arity, nseg_req)
-        _, _, mbp, _, _ = dk._geom(C, arity, nseg_cap)
-
-        nb_full = np.zeros((BP, LANES), np.int64)
-        nb_full[:B, : nb.shape[1]] = nb
-        pay = np.zeros((BP * LANES, mbp), np.uint8)
-        pay[
-            np.arange(mbp, dtype=np.int64)[None, :]
-            < nb_full.reshape(-1)[:, None]
-        ] = flat
-        from data_compression_tpu.utils.transfer import from_device, to_device
-
-        payload_t = to_device(
-            np.ascontiguousarray(
-                pay.reshape(NC, G8, LANES, mbp).transpose(0, 3, 1, 2)
-            ).reshape(NC, mbp * G8, LANES)
-        )
-        nb_cell = nb_full.reshape(NC, G8 * LANES).max(axis=1)
-        meta = np.zeros((NC, 1, 2), np.int32)
-        meta[:, 0, 0] = np.maximum(1, -(-(nb_cell * dpb) // SEG))
-
-        dr = hb.decode_rows(tb, L)
-        limit = np.zeros((BP, L + 1), np.int64)
-        limit[:B] = dr["limit_scaled"]
-        bmf = np.zeros((BP, LANES), np.int64)
-        bmf[:B, : L + 1] = dr["base_minus_first"]
-        syms = np.zeros((BP, 2, LANES), np.int32)
-        syms[:B] = dr["symbols"].reshape(B, 2, LANES)
-
-        out = dk._decode_pallas(
-            payload_t,
-            to_device(limit.reshape(NC, G8, L + 1).astype(np.int32)),
-            to_device(bmf.reshape(NC, G8, LANES).astype(np.int32)),
-            to_device(syms.reshape(NC, 2 * G8, LANES)),
-            to_device(meta),
-            chunk_syms=C,
-            arity=arity,
-            nseg_cap=nseg_cap,
-        )
-        arr = from_device(out).reshape(-1, C, LANES).transpose(0, 2, 1)
-        return [
-            arr[b].reshape(-1)[: int(raw_lens[b])].tobytes() for b in range(B)
-        ]
-
-    def _decode_xla_vec(self, tb, nb, flat, raw_lens):
         import jax.numpy as jnp
 
         from data_compression_tpu.huffman import batched as hb
-        from data_compression_tpu.ops.decode_fast import (
-            decode_chunks_fast as decode_chunks,
-        )
+        from data_compression_tpu.ops.compaction import round_cap
+        from data_compression_tpu.ops.decode_kernel import decode_chunks
         from data_compression_tpu.ops.huffman_coding import max_chunk_bytes
+        from data_compression_tpu.utils.jit_cache import enable_persistent_cache
 
+        enable_persistent_cache()
         arity = self.config.arity
         C = self.config.chunk_syms
-        B, ncb = nb.shape
-        mb = max_chunk_bytes(C, arity)
-        if int(nb.max(initial=0)) > mb:
+        rows, nb, flat = self._parse_payloads_vec(
+            payloads, raw_lens, shared_table
+        )
+        if int(nb.max(initial=0)) > max_chunk_bytes(C, arity):
             raise ValueError("huffman chunk payload too large")
-        L = ARITY_MAX_LEN[arity]
+        tb = hb.tables_from_bytes(rows, arity)
+        B, ncb = nb.shape
 
-        n_real = np.asarray(
-            [len(self._chunk_counts(int(r))) for r in raw_lens], np.int64
-        )
-        counts = np.clip(
-            np.asarray(raw_lens, np.int64)[:, None]
-            - np.arange(ncb, dtype=np.int64)[None, :] * C,
-            0,
-            C,
-        )
+        raw = np.asarray(raw_lens, np.int64)
+        n_real = np.maximum(1, -(-raw // C))
         keep = np.arange(ncb)[None, :] < n_real[:, None]  # [B, ncb]
-        flat_counts = counts[keep].astype(np.int32)
+        counts = np.clip(
+            raw[:, None] - np.arange(ncb, dtype=np.int64)[None, :] * C, 0, C
+        )[keep]
         nb_keep = nb[keep]
-        N = int(keep.sum())
-        payload_arr = np.zeros((N, mb), np.uint8)
-        payload_arr[
-            np.arange(mb, dtype=np.int64)[None, :] < nb_keep[:, None]
-        ] = flat
+        starts = np.zeros(nb_keep.size, np.int64)
+        np.cumsum(nb_keep[:-1], out=starts[1:])
         tbl_of = np.repeat(np.arange(B, dtype=np.int32), n_real)
-
-        dr = hb.decode_rows(tb, L)
+        # the compressed size is bucketed so frames of one stream share
+        # a compiled decode
+        flat_p = np.zeros(round_cap(flat.size), np.uint8)
+        flat_p[: flat.size] = flat
+        dr = hb.decode_rows(tb, ARITY_MAX_LEN[arity])
         syms = decode_chunks(
-            jnp.asarray(payload_arr),
-            jnp.asarray(flat_counts),
+            jax.device_put(flat_p),
+            jnp.asarray(starts, jnp.int32),
+            jnp.asarray(counts, jnp.int32),
+            jnp.asarray(tbl_of),
             jnp.asarray(dr["limit_scaled"].astype(np.int32)),
             jnp.asarray(dr["base_minus_first"].astype(np.int32)),
             jnp.asarray(dr["symbols"]),
-            jnp.asarray(tbl_of),
             arity=arity,
             chunk_syms=C,
         )
@@ -826,8 +485,7 @@ class HuffmanCodec(Codec):
         start = 0
         for b in range(B):
             nc = int(n_real[b])
-            block = syms[start : start + nc].reshape(-1)[: int(raw_lens[b])]
-            out.append(block.tobytes())
+            out.append(syms[start : start + nc].reshape(-1)[: int(raw[b])].tobytes())
             start += nc
         return out
 

@@ -1,21 +1,18 @@
 """Device-side payload compaction: ragged chunk payloads -> one flat
 contiguous buffer.
 
-The Pallas encoder emits worst-case-width rows ([N, MB] with only
-``nbytes[i]`` valid per row, ~1.9x the input at n=2).  Round 3 shipped
-that whole buffer device->host and sliced it with N Python ``.tobytes()``
-calls — the single biggest end-to-end defect (VERDICT r3 weak #1).
-This op concatenates the valid prefixes ON DEVICE so the host transfer
-is exactly the compressed bytes (plus <= one bucket of slack) and the
-frame assembles from one contiguous array.
+The encoder (ops/encode_fast.py) emits worst-case-width rows ([N, MB]
+with only ``nbytes[i]`` valid per row, ~1.9x the input at n=2).  This
+op concatenates the valid prefixes on the device, inside the encode
+jit, so the host downloads exactly the compressed bytes and assembles
+frames from one contiguous array.
 
-Formulation (all static-shape, XLA-friendly — no data-dependent
-shapes): scatter one marker per chunk at its output start offset, a
-cumsum turns the markers into ``chunk_of_byte`` (the same run-length
-expansion trick as ops/huffman_coding.encode_chunks), and each output
-byte is then one 32-bit word gather + shift.  ``out_cap`` is a static
-bucket >= the true total; the host slices the result to the exact
-total.
+Formulation (static shapes only): scatter one marker per chunk at its
+output start offset, a cumsum turns the markers into ``chunk_of_byte``
+(the run-length expansion trick of ops/huffman_coding.encode_chunks),
+and each output byte is then one 32-bit word gather + shift.
+``out_cap`` is a static bucket >= the true total; the host slices the
+result to the exact total.
 """
 
 from __future__ import annotations
@@ -35,11 +32,12 @@ def round_cap(total: int) -> int:
 
 @functools.partial(jax.jit, static_argnames=("out_cap",))
 def compact_rows(rows: jnp.ndarray, nbytes: jnp.ndarray, out_cap: int):
-    """rows: [N, MB] uint8 (MB % 4 == 0), nbytes: [N] int — returns
+    """rows: [N, MB] uint8, nbytes: [N] int — returns
     [out_cap] uint8 holding rows[0, :nbytes[0]] ++ rows[1, :nbytes[1]]
     ++ ...; bytes past the true total are undefined."""
+    if rows.shape[1] % 4:
+        rows = jnp.pad(rows, [(0, 0), (0, -rows.shape[1] % 4)])
     N, MB = rows.shape
-    assert MB % 4 == 0
     nbytes = nbytes.astype(jnp.int32)
     starts = jnp.concatenate(
         [jnp.zeros(1, jnp.int32), jnp.cumsum(nbytes)]
@@ -51,10 +49,11 @@ def compact_rows(rows: jnp.ndarray, nbytes: jnp.ndarray, out_cap: int):
     )
     cid = jnp.cumsum(markers) - 1  # [out_cap]
     cid = jnp.clip(cid, 0, N - 1)
-    k = jnp.arange(out_cap, dtype=jnp.int32) - starts[cid]
-    src = jnp.clip(cid * MB + k, 0, N * MB - 1)
+    k = jnp.clip(jnp.arange(out_cap, dtype=jnp.int32) - starts[cid], 0, MB - 1)
+    # (row, word) gather: N * MB can pass 2^31 at GiB scale, so no
+    # flat int32 byte index
     words = jax.lax.bitcast_convert_type(
-        rows.reshape(N * MB // 4, 4), jnp.uint32
+        rows.reshape(N, MB // 4, 4), jnp.uint32
     )
-    w = words[src >> 2]
-    return (w >> (8 * (src & 3).astype(jnp.uint32))).astype(jnp.uint8)
+    w = words[cid, k >> 2]
+    return (w >> (8 * (k & 3).astype(jnp.uint32))).astype(jnp.uint8)

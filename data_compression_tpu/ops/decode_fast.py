@@ -1,8 +1,11 @@
 """Digit-parallel canonical Huffman decode (gather-free hot path).
 
 The scan decoder (ops/huffman_coding.decode_chunks) performs per-step
-dynamic-slice gathers, which serialize badly on TPU.  This formulation
-makes every expensive stage elementwise over the whole digit stream:
+dynamic-slice gathers.  This formulation makes every expensive stage
+elementwise over the whole digit stream (it is the CPU route of
+ops/decode_kernel.decode_chunks and the GPU kernel's reference; its
+[N, cap] int32 intermediates, ~60 bytes per input byte at n=2, keep it
+to tens of MiB per call on a card):
 
   1. unpack payload bytes -> digits (elementwise);
   2. sliding window value W(j) for EVERY digit position j via L static

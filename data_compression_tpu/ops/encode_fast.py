@@ -1,10 +1,9 @@
 """Scatter-free Huffman encode: hierarchical bit-buffer merge.
 
 The v1 encoder (ops/huffman_coding.py) places each output digit with a
-scatter-add + cumsum; XLA lowers TPU scatters to serialized updates, so
-it crawls.  This formulation uses ONLY elementwise ops, static pads /
-slices, selects, and one table gather per symbol — everything the VPU
-streams at full rate:
+scatter-add + cumsum over a [N, cap] digit grid.  This formulation uses
+only elementwise ops, static pads / slices, selects, and one table
+gather per symbol, which XLA fuses into a few memory-bound loops:
 
   * each symbol's code becomes a little-endian *bit-field* word: digit
     m (stream order) occupies field m of width bpd bits (bpd = 1 for
@@ -19,7 +18,9 @@ streams at full rate:
     byte wire format (n_ary_huffman.c:745-753) in one elementwise pass.
 
 Byte-for-byte identical to the v1 encoder and the numpy oracle
-(tests/test_encode_fast.py).
+(tests/test_encode_fast.py).  ``encode_blocks_compact`` is the device
+encode of every entry point: this merge tree and ops/compaction in one
+jit, so only compressed bytes leave the device.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ import numpy as np
 
 from data_compression_tpu.config import ARITY_DIGITS_PER_BYTE, ARITY_MAX_LEN
 from data_compression_tpu.huffman.canonical import CanonicalTable
+from data_compression_tpu.ops.compaction import compact_rows
 from data_compression_tpu.ops.huffman_coding import _cap_digits
 
 BITS_PER_DIGIT = {2: 1, 3: 2, 16: 4}
@@ -157,3 +159,36 @@ def words_to_wire_bytes(buf: jnp.ndarray, arity: int, cap_digits: int) -> jnp.nd
     shifts = (8 * jnp.arange(4, dtype=jnp.uint32))[None, None, :]
     out = ((buf[:, :, None] >> shifts) & jnp.uint32(0xFF)).astype(jnp.uint8)
     return out.reshape(N, Wf * 4)[:, : cap_digits // D]
+
+
+@functools.partial(
+    jax.jit, static_argnames=("arity", "chunk_syms", "out_cap")
+)
+def encode_blocks_compact(
+    blocks: jnp.ndarray,  # [B, S] uint8
+    lengths: jnp.ndarray,  # [B] valid bytes per block
+    packed_tab: jnp.ndarray,  # [B, 256] uint32 (pack_encode_table)
+    bits_tab: jnp.ndarray,  # [B, 256] int32
+    *,
+    arity: int,
+    chunk_syms: int,
+    out_cap: int,
+):
+    """Encode every chunk of every block and compact the payloads.
+    -> (flat [out_cap] uint8 wire bytes in chunk order, nbytes [B, S/C]
+    int32 per-chunk wire bytes).  ``out_cap`` must be >= the total."""
+    B, S = blocks.shape
+    C = chunk_syms
+    ncb = S // C
+    counts = jnp.clip(
+        lengths.astype(jnp.int32)[:, None]
+        - jnp.arange(ncb, dtype=jnp.int32)[None, :] * C,
+        0,
+        C,
+    ).reshape(-1)
+    tbl_of_chunk = jnp.repeat(jnp.arange(B, dtype=jnp.int32), ncb)
+    packed, nbytes, _ = encode_chunks_fast(
+        blocks.reshape(B * ncb, C), counts, packed_tab, bits_tab,
+        tbl_of_chunk, arity=arity, chunk_syms=C,
+    )
+    return compact_rows(packed, nbytes, out_cap), nbytes.reshape(B, ncb)

@@ -2,7 +2,7 @@
 
 The MTF/LZW schemes are inherently sequential *within* a block (every
 output byte depends on the mutable context table updated by the
-previous byte — SURVEY.md §3.3), so the TPU strategy is parallelism
+previous byte — SURVEY.md §3.3), so the device strategy is parallelism
 *across* blocks: a ``jax.lax.scan`` carries the 16x8 context table per
 lane and ``jax.vmap`` runs thousands of lanes at once.  All shapes are
 static; emission counts vary per step, so streams are assembled with an

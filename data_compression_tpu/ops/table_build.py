@@ -2,10 +2,9 @@
 
 The last host-only stage of the compressor.  With it, the ENTIRE
 compress pipeline — histogram, tree build, canonical code assignment,
-encode-table layout, fused encode kernel, payload compaction — is one
-jittable function with zero host round trips (api `compress_device`),
-which is what a TPU-resident producer (e.g. checkpoint shards already
-in HBM) actually needs.
+encode tables, encode, payload compaction — runs on the device
+(device_api.compress_blocks_device), which is what a producer whose
+data already lives in device memory needs.
 
 The tree build vectorizes the classic two-queue merge ACROSS blocks:
 one `lax.scan` step performs one n-ary merge for all B blocks (a few
@@ -39,19 +38,12 @@ NL = S + MAXD  # leaf id space (sorted position); internal ids follow
 INF = np.int32(2**31 - 1)
 
 
-# Tuning knobs (module-level so tools/ can time variants; production
-# values fixed by the round-5 chip profile: one-hot gathers/selects
-# beat XLA dynamic gather/scatter ~10x on this path, pointer-doubling
-# depths LOST to the per-id scan 91 ms vs 37 ms — TPU row gathers
-# serialize per element).
 _KM = 4  # merges per merge-scan step
-_DEPTH_DOUBLING = False  # pointer-doubling depths vs per-id scan
 
 
 def _take1(mat, idx):
     """mat[b, idx[b]] via one-hot compare+reduce: [B, W], [B] -> [B].
-    Out-of-range idx yields 0.  ~10x faster than take_along_axis here
-    (XLA lowers per-row dynamic gathers to serialized slices on TPU)."""
+    Out-of-range idx yields 0."""
     io = jax.lax.broadcasted_iota(jnp.int32, mat.shape, 1)
     return jnp.sum(jnp.where(io == idx[:, None], mat, 0), axis=1)
 
@@ -103,10 +95,8 @@ def _build_once(hists, arity: int):
 
     # _KM merges per lax.scan step; the parent array stays OUT of the
     # scan carry — each merge just emits its child ids (a [B, 2] leaf)
-    # and ONE post-scan scatter builds the pointers.  Keeping a
-    # [B, ids] parent in the carry forced a full-width rewrite per
-    # merge (~8 MB of HBM traffic each); emitting ys instead halved
-    # the whole build, 12.4 -> 6.1 ms at B=1024 (round-5 profile).
+    # and ONE post-scan scatter builds the pointers, so no merge
+    # rewrites a full-width [B, ids] array.
     KM = _KM
     TS = -(-T // KM)  # scan steps
 
@@ -159,45 +149,28 @@ def _build_once(hists, arity: int):
         .set(jnp.broadcast_to(pvals[None, :], cids.shape), mode="drop")
     )[:, :ids]
 
-    if _DEPTH_DOUBLING:
-        # Internal-node depths by POINTER DOUBLING: depth(u) = hops to
-        # the root along parent links; log2(T) rounds of two [B, T+1]
-        # gathers replace the former one-scan-step-per-internal-id chain.
-        par = parent[:, NL : NL + T]  # [B, T] parents of internal nodes
-        hops = (par >= 0).astype(jnp.int32)
-        ptr = jnp.where(par >= 0, par - NL, T)  # T = terminal sentinel
-        hops_p = jnp.pad(hops, [(0, 0), (0, 1)])  # sentinel: 0 extra
-        ptr_p = jnp.pad(ptr, [(0, 0), (0, 1)], constant_values=T)
-        rounds = max(1, int(np.ceil(np.log2(max(T, 2)))))
-        for _ in range(rounds):
-            hops_p = hops_p + jnp.take_along_axis(hops_p, ptr_p, axis=1)
-            ptr_p = jnp.take_along_axis(ptr_p, ptr_p, axis=1)
-        idepth = hops_p[:, :T]
-    else:
-        # per-internal-id reverse scan (ids descending: parents always
-        # have larger ids)
-        idepth0 = jnp.zeros((B, T), jnp.int32)
+    # per-internal-id reverse scan (ids descending: parents always
+    # have larger ids)
+    idepth0 = jnp.zeros((B, T), jnp.int32)
 
-        def depth_step(idepth, iid):
-            p = jax.lax.dynamic_slice_in_dim(parent, NL + iid, 1, axis=1)[:, 0]
-            pd = _take1(idepth, jnp.clip(p - NL, 0, T - 1))
-            col = jnp.where(p >= 0, pd + 1, 0)
-            return (
-                jax.lax.dynamic_update_slice_in_dim(
-                    idepth, col[:, None], iid, axis=1
-                ),
-                None,
-            )
-
-        idepth, _ = jax.lax.scan(
-            depth_step, idepth0, jnp.arange(T - 1, -1, -1, dtype=jnp.int32)
+    def depth_step(idepth, iid):
+        p = jax.lax.dynamic_slice_in_dim(parent, NL + iid, 1, axis=1)[:, 0]
+        pd = _take1(idepth, jnp.clip(p - NL, 0, T - 1))
+        col = jnp.where(p >= 0, pd + 1, 0)
+        return (
+            jax.lax.dynamic_update_slice_in_dim(
+                idepth, col[:, None], iid, axis=1
+            ),
+            None,
         )
 
+    idepth, _ = jax.lax.scan(
+        depth_step, idepth0, jnp.arange(T - 1, -1, -1, dtype=jnp.int32)
+    )
+
     # Leaf depths + the map back to symbols, as CHUNKED one-hot
-    # contractions: the former full-width take_along_axis/scatter pair
-    # serialized per element on TPU (~12 ms of the 22 ms table stage at
-    # B=1024, round-5 profile); compare+reduce over 32-wide index
-    # chunks fuses on the VPU.
+    # contractions: compare+reduce over 32-wide index chunks, which XLA
+    # fuses into elementwise loops.
     CH = 32
     pli = parent[:, :NL] - NL  # internal parent idx per sorted pos
     leaf_depth = jnp.zeros((B, NL), jnp.int32)
@@ -256,18 +229,15 @@ def huffman_lengths_device(hists: jnp.ndarray, arity: int) -> jnp.ndarray:
 
 @functools.partial(jax.jit, static_argnames=("arity",))
 def encode_tables_device(lengths: jnp.ndarray, arity: int):
-    """[B, 256] lengths -> (dense [B, R, 128] int32 Pallas lookup rows,
-    n_used [B] int32).  Mirrors batched.dense_rows."""
+    """[B, 256] lengths -> (packed [B, 256] uint32 field-packed code
+    words, bits [B, 256] int32 field-bit lengths): the tables of
+    ops/encode_fast.  Mirrors batched.packed_rows."""
     from data_compression_tpu.ops.encode_fast import BITS_PER_DIGIT
-    from data_compression_tpu.ops.pallas.encode_kernel import PACKED_LEN_SHIFT
 
     L = ARITY_MAX_LEN[arity]
     bpd = BITS_PER_DIGIT[arity]
     B = lengths.shape[0]
     lengths = lengths.astype(jnp.int32)
-    used = lengths > 0
-    n_used = used.sum(axis=1).astype(jnp.int32)
-
     count = jnp.zeros((B, L + 1), jnp.int32)
     for ln in range(1, L + 1):
         count = count.at[:, ln].set((lengths == ln).sum(axis=1))
@@ -276,9 +246,9 @@ def encode_tables_device(lengths: jnp.ndarray, arity: int):
         first_code = first_code.at[:, ln + 1].set(
             (first_code[:, ln] + count[:, ln]) * arity
         )
-    # canonical code per symbol WITHOUT the argsort/scatter pair (both
-    # serialize on TPU): code[s] = first_code[len] + rank-within-length,
-    # the rank an exclusive prefix count over the symbol axis
+    # canonical code per symbol without an argsort/scatter pair:
+    # code[s] = first_code[len] + rank-within-length, the rank an
+    # exclusive prefix count over the symbol axis
     codes = jnp.zeros((B, S), jnp.int32)
     for ln in range(1, L + 1):
         is_ln = lengths == ln
@@ -287,7 +257,7 @@ def encode_tables_device(lengths: jnp.ndarray, arity: int):
 
     # field-packed code words (pack_encode_table convention); digit
     # extraction via shifts for power-of-two arities, else a
-    # select-decomposed power (TPU-lowered small gathers serialize)
+    # select-decomposed power
     packed = jnp.zeros((B, S), jnp.int32)
     log2n = {2: 1, 4: 2, 16: 4}.get(arity)
     pow_tab = np.array([arity**p for p in range(L + 1)], np.int64)
@@ -305,15 +275,7 @@ def encode_tables_device(lengths: jnp.ndarray, arity: int):
         packed = packed | jnp.where(m < lengths, digit << (m * bpd), 0)
     bits = lengths * bpd
 
-    sh = PACKED_LEN_SHIFT.get(arity)
-    packed = jnp.where(bits > 0, packed, 0)
-    if sh is not None:
-        dense = ((lengths << sh) | packed).reshape(B, 2, 128)
-    else:
-        dense = jnp.concatenate(
-            [packed.reshape(B, 2, 128), bits.reshape(B, 2, 128)], axis=1
-        )
-    return dense, n_used
+    return packed.astype(jnp.uint32), bits
 
 
 @functools.partial(jax.jit, static_argnames=("arity", "pad_to"))

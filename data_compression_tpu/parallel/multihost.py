@@ -3,15 +3,15 @@
 The reference is a single-threaded filter; nothing distributed exists
 there (SURVEY.md §2.5).  This module is the framework's multi-host
 runtime per BASELINE.json's north star: shard a stream across hosts
-over DCN, build tables with a globally-reduced histogram (the sum over
-the sharded block axis compiles to an all-reduce riding ICI within a
-slice and DCN across hosts), and gather compressed blocks in order with
-exact framing offsets.
+over the network, build tables with a globally-reduced histogram (the
+sum over the sharded block axis compiles to an all-reduce across
+devices and hosts), and gather compressed blocks in order with exact
+framing offsets.
 
 Execution model (one process per host, jax.distributed):
 
   1. ``initialize()`` — jax.distributed.initialize(); afterwards
-     jax.devices() spans the slice and process_index() identifies the
+     jax.devices() spans every host and process_index() identifies the
      host.
   2. Each host owns the contiguous row range its devices hold
      (``jax.make_array_from_process_local_data`` assembles the global
@@ -21,7 +21,7 @@ Execution model (one process per host, jax.distributed):
      shared-table mode the histogram all-reduce crosses hosts inside
      the jitted step.
   4. Per-block compressed lengths and payloads return replicated
-     (XLA's allgather over DCN); every host computes identical exact
+     (XLA's allgather across hosts); every host computes identical exact
      offsets (prefix sum) and assembles the identical frame — host 0
      is only special for file writing.
 
@@ -29,6 +29,11 @@ Decompression is the mirror image: every host parses the same frame,
 contributes its contiguous share of the chunk-sharded payload array,
 and the decode step returns the symbols replicated so each host can
 verify CRCs and reassemble the stream.
+
+This module is for several hosts only: one process per host, each
+driving all of that host's devices.  On one machine, one process drives
+every card (parallel/pipeline.py); never start a second process on a
+card that another JAX process holds.
 
 Single-machine testing: run N processes with
 ``JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=K``
@@ -86,7 +91,7 @@ def compress_multihost_bytes(data: bytes, config) -> bytes:
     Shared-table mode (``config.shared_table``): one canonical table is
     built from the global histogram — the per-block histograms are
     summed inside the jitted step, which XLA lowers to an all-reduce
-    across the block-sharded axis (ICI within a slice, DCN across
+    across the block-sharded axis (within a host and across
     hosts), exactly the broadcast-table design of SURVEY.md §2.5.
     """
     from data_compression_tpu import framing
@@ -291,27 +296,42 @@ def decompress_multihost_bytes(data: bytes, config=None) -> bytes:
         payload_g = jax.make_array_from_process_local_data(
             cs, payload_arr[p * per : (p + 1) * per], (Np, mb)
         )
+        ds = NamedSharding(mesh, P("data"))
 
-        def dec_fn(payload, counts, lim, bm, st, tb):
-            from data_compression_tpu.ops.decode_fast import decode_chunks_fast
+        from jax import shard_map
 
-            return decode_chunks_fast(
-                payload, counts, lim, bm, st, tb, arity=arity, chunk_syms=C
+        from data_compression_tpu.ops.decode_kernel import decode_chunks
+
+        def local(payload, counts, tb, lim, bm, st):
+            # each device decodes its rows of the padded payload array
+            starts = jnp.arange(payload.shape[0], dtype=jnp.int32) * mb
+            return decode_chunks(
+                payload.reshape(-1), starts, counts, tb, lim, bm, st,
+                arity=arity, chunk_syms=C,
             )
 
         dec_step = jax.jit(
-            dec_fn,
-            in_shardings=(cs, rep, rep, rep, rep, rep),
+            shard_map(
+                local,
+                mesh=mesh,
+                in_specs=(P("data"), P("data"), P("data"), P(), P(), P()),
+                out_specs=P("data"),
+                check_vma=False,
+            ),
             out_shardings=rep,  # replicated: full decode on every host
         )
         syms = np.asarray(
             dec_step(
                 payload_g,
-                jax.make_array_from_process_local_data(rep, counts_arr, (Np,)),
+                jax.make_array_from_process_local_data(
+                    ds, counts_arr[p * per : (p + 1) * per], (Np,)
+                ),
+                jax.make_array_from_process_local_data(
+                    ds, tbl_arr[p * per : (p + 1) * per], (Np,)
+                ),
                 jax.make_array_from_process_local_data(rep, limit, limit.shape),
                 jax.make_array_from_process_local_data(rep, bmf, bmf.shape),
                 jax.make_array_from_process_local_data(rep, symtab, symtab.shape),
-                jax.make_array_from_process_local_data(rep, tbl_arr, (Np,)),
             )
         )
         for i, start, nc, raw_len in spans:

@@ -1,23 +1,21 @@
-"""Sharded compress/decompress pipeline (single- and multi-chip).
+"""Sharded compress/decompress pipeline (one or several devices).
 
-The full device step — histogram, chunk reshape + resharding, encode,
-global histogram all-reduce — compiles as ONE pjit program over the
-mesh; XLA inserts the collectives (the all-reduce for the shared-table
-histogram rides ICI).  Canonical table *construction* stays on host
-(a 256-symbol heap problem, microseconds) and tables re-enter the step
-replicated — the broadcast BASELINE.json's north star calls for.
+Execution schedule per stream:
+  1. device: per-block histograms, blocks sharded over 'data'; the
+     shared-table mode's global histogram is the all-reduce XLA
+     inserts for the sum over the sharded block axis;
+  2. host:   canonical tables from the histograms (native C code
+     lengths, bit-identical to the single-device path), replicated
+     to the mesh;
+  3. device: under shard_map, every device encodes its contiguous range
+     of chunks (ops/encode_fast merge tree) and compacts its payloads;
+  4. host:   per-device compressed bytes concatenate in device order,
+     which is chunk order, and frame exactly as api.compress does.
 
-Execution schedule (steady state, per batch of blocks):
-  1. device: per-block histograms  [all-parallel]
-  2. host:   canonical tables from histograms (or one shared table via
-             the jit-internal all-reduce in shared mode)
-  3. device: chunked encode -> (packed payloads, per-chunk lengths)
-  4. host:   exclusive prefix-sum of lengths -> exact framing offsets,
-             ordered payload assembly (the allgather-of-lengths design
-             from SURVEY.md §5).
-
-Steps 1/3 scale with devices; steps 2/4 are O(tables) and O(output
-bytes memcpy) on host.
+Decode shards the chunks the same way: each device gets its chunks'
+payload bytes and runs ops/decode_kernel.decode_chunks (the GPU kernel
+on GPUs, the XLA decode on the CPU).  The stream is byte-identical to
+the single-device api.compress stream.
 """
 
 from __future__ import annotations
@@ -25,14 +23,13 @@ from __future__ import annotations
 from typing import List, Optional
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from data_compression_tpu.config import ARITY_MAX_LEN, CodecConfig
-from data_compression_tpu.huffman.canonical import build_decode_tables, lengths_to_codes
-from data_compression_tpu.models.huffman import capped_lengths, _pack_payload
+from data_compression_tpu.config import ARITY_DIGITS_PER_BYTE, ARITY_MAX_LEN, CodecConfig
 from data_compression_tpu.ops.huffman_coding import max_chunk_bytes
+
+CHUNKS = ("data", "chunk")  # chunk axis is sharded over the whole mesh
 
 
 def make_sharded_hist_step(mesh: Mesh):
@@ -51,145 +48,54 @@ def make_sharded_hist_step(mesh: Mesh):
     return jax.jit(step, in_shardings=(dp, rep), out_shardings=(rep, rep))
 
 
-def make_sharded_encode_step(mesh: Mesh, arity: int, chunk_syms: int):
-    """Returns jitted fn(blocks [B,S], lengths [B], packed_tab [B,256]
-    uint32, bits_tab [B,256] int32) -> (packed [N,mb], nbytes [N]).
+def make_sharded_encode_step(mesh: Mesh, arity: int, chunk_syms: int,
+                             cap_per_device: int):
+    """jitted fn(syms [N, C], counts [N], tbl_of_chunk [N], packed_tab
+    [T, 256], bits_tab [T, 256]) -> (flat [ndev * cap] uint8, nbytes
+    [N]); device d's compacted payloads sit at flat[d * cap:]."""
+    from jax import shard_map
 
-    Tables are the pre-packed bit-field form (ops/encode_fast.
-    pack_encode_table).  blocks enter sharded over 'data'; chunks are
-    resharded over ('data','chunk') — on a 2-D mesh XLA emits the
-    all-to-all.
-    """
+    from data_compression_tpu.ops.compaction import compact_rows
     from data_compression_tpu.ops.encode_fast import encode_chunks_fast
 
-    C = chunk_syms
-    dp = NamedSharding(mesh, P("data", None))
-    cs = NamedSharding(mesh, P(("data", "chunk"), None))
-    rep = NamedSharding(mesh, P())
-
-    def step(blocks, lengths, packed_tab, bits_tab):
-        B, S = blocks.shape
-        ncb = S // C
-        syms = jax.lax.with_sharding_constraint(blocks.reshape(B * ncb, C), cs)
-        counts = jnp.clip(
-            lengths[:, None] - jnp.arange(ncb, dtype=lengths.dtype)[None, :] * C, 0, C
-        ).reshape(-1)
-        tbl_of_chunk = (
-            jnp.broadcast_to(jnp.arange(B, dtype=jnp.int32)[:, None], (B, ncb))
-        ).reshape(-1)
+    def local(syms, counts, tbl, packed_tab, bits_tab):
         packed, nbytes, _ = encode_chunks_fast(
-            syms, counts, packed_tab, bits_tab, tbl_of_chunk, arity=arity, chunk_syms=C
+            syms, counts, packed_tab, bits_tab, tbl, arity=arity,
+            chunk_syms=chunk_syms,
         )
-        return packed, nbytes
+        return compact_rows(packed, nbytes, cap_per_device), nbytes
 
-    return jax.jit(
-        step,
-        in_shardings=(dp, rep, rep, rep),
-        out_shardings=(cs, rep),
-    )
+    return jax.jit(shard_map(
+        local,
+        mesh=mesh,
+        in_specs=(P(CHUNKS), P(CHUNKS), P(CHUNKS), P(), P()),
+        out_specs=(P(CHUNKS), P(CHUNKS)),
+        check_vma=False,
+    ))
 
 
 def make_sharded_decode_step(mesh: Mesh, arity: int, chunk_syms: int):
-    from data_compression_tpu.ops.decode_fast import decode_chunks_fast
-
-    cs = NamedSharding(mesh, P(("data", "chunk"), None))
-    rep = NamedSharding(mesh, P())
-
-    def step(payload, counts, limit, bmf, symtab, tbl_of_chunk):
-        return decode_chunks_fast(
-            payload,
-            counts,
-            limit,
-            bmf,
-            symtab,
-            tbl_of_chunk,
-            arity=arity,
-            chunk_syms=chunk_syms,
-        )
-
-    return jax.jit(
-        step,
-        in_shardings=(cs, rep, rep, rep, rep, rep),
-        out_shardings=cs,
-    )
-
-
-def make_shardmap_encode_step(
-    mesh: Mesh,
-    arity: int,
-    maxlen: int,
-    chunk_syms: int,
-    interpret: bool = False,
-):
-    """shard_map variant: every device runs the fused Pallas encode
-    kernel on its local [B/n, C, 128] shard (the pjit steps above ride
-    the portable XLA encoder; on a real slice per-chip throughput is
-    then the XLA number, not the benched kernel — VERDICT round-1 weak
-    #6).  ``interpret=True`` executes the identical program on CPU
-    meshes for the dryrun/test path.
-
-    Returns jitted fn(syms_t [B, C, 128] u8, dense [B, R, 128] i32,
-    meta [B, 2] i32) -> (byts [B, MB, 128] u8, ndigits [B, 1, 128]
-    i32), all sharded over 'data' on the leading axis."""
+    """jitted fn(flat [ndev, F] uint8, starts [N], counts [N],
+    tbl_of_chunk [N], limit, bmf, symbols) -> [N, C] uint8; row d of
+    ``flat`` holds device d's chunk payloads, ``starts`` are offsets
+    into that row."""
     from jax import shard_map
 
-    from data_compression_tpu.ops.pallas.encode_kernel import _encode_pallas
+    from data_compression_tpu.ops.decode_kernel import decode_chunks
 
-    def local(syms_t, dense, meta):
-        return _encode_pallas(
-            syms_t,
-            dense,
-            meta,
-            arity=arity,
-            maxlen=maxlen,
-            chunk_syms=chunk_syms,
-            interpret=interpret,
+    def local(flat, starts, counts, tbl, limit, bmf, symbols):
+        return decode_chunks(
+            flat[0], starts, counts, tbl, limit, bmf, symbols,
+            arity=arity, chunk_syms=chunk_syms,
         )
 
-    fn = shard_map(
+    return jax.jit(shard_map(
         local,
         mesh=mesh,
-        in_specs=(P("data"), P("data"), P("data")),
-        out_specs=(P("data"), P("data")),
+        in_specs=(P(CHUNKS), P(CHUNKS), P(CHUNKS), P(CHUNKS), P(), P(), P()),
+        out_specs=P(CHUNKS),
         check_vma=False,
-    )
-    return jax.jit(fn)
-
-
-def make_shardmap_decode_step(
-    mesh: Mesh, chunk_syms: int, interpret: bool = False,
-    nseg_cap: int | None = None, arity: int = 2,
-):
-    """shard_map variant of decode: each device runs the fused Pallas
-    decode kernel (any DEC_ARITIES arity) on its local share of
-    8-block cells.  Inputs are prep_decode_inputs()'s arrays, sharded
-    over the leading cell axis (``nseg_cap`` is its static
-    payload-geometry bound); returns [NC, 8*C, 128] u8 shards."""
-    from jax import shard_map
-
-    from data_compression_tpu.ops.pallas import decode_kernel as dk
-
-    def local(payload_t, limit, bmf, syms, meta):
-        return dk._decode_pallas(
-            payload_t,
-            limit,
-            bmf,
-            syms,
-            meta,
-            chunk_syms=chunk_syms,
-            interpret=interpret,
-            nseg_cap=nseg_cap,
-            arity=arity,
-        )
-
-    fn = shard_map(
-        local,
-        mesh=mesh,
-        in_specs=(P("data"), P("data"), P("data"), P("data"), P("data")),
-        out_specs=P("data"),
-        check_vma=False,
-    )
-    return jax.jit(fn)
+    ))
 
 
 # ----------------------------------------------------------------------
@@ -209,170 +115,113 @@ def _pad_blocks(blocks: np.ndarray, lengths: np.ndarray, multiple: int):
     return pb, pl, B
 
 
-def _pallas_geom_ok(arity: int, block_size: int, chunk_syms: int) -> bool:
-    """The fused kernels' geometry gate: a block is 128 lane-chunks of
-    a power-of-two >= 128 symbols (mirrors models/huffman.py)."""
-    lane_c = block_size // 128
-    return (
-        arity in (2, 3, 16)
-        and block_size % 128 == 0
-        and chunk_syms == lane_c
-        and lane_c >= 128
-        and lane_c & (lane_c - 1) == 0
-    )
-
-
 def compress_sharded(
     data: bytes,
     config: CodecConfig,
     mesh: Optional[Mesh] = None,
-    use_pallas: Optional[bool] = None,
 ) -> bytes:
-    """Multi-chip framed compression (huffman codec).
-
-    ``use_pallas``: run the fused encode kernel per shard via shard_map
-    (None = auto: on when the mesh is TPU and the geometry fits; forced
-    True on a CPU mesh runs the kernel in interpret mode for
-    validation)."""
+    """Multi-device framed compression (huffman codec); the stream is
+    byte-identical to ``api.compress(data, config)``."""
     from data_compression_tpu import framing
-    from data_compression_tpu.utils.crc import crc32
+    from data_compression_tpu.huffman import batched as hb
+    from data_compression_tpu.models.huffman import HuffmanCodec
+    from data_compression_tpu.ops.compaction import round_cap
+    from data_compression_tpu.utils.crc import crc32_blocks
+    from data_compression_tpu.utils.jit_cache import enable_persistent_cache
 
     assert config.codec == "huffman"
+    enable_persistent_cache()
     if mesh is None:
         from data_compression_tpu.parallel.mesh import make_mesh
 
         mesh = make_mesh()
+    arity = config.arity
     C = config.chunk_syms
     S = config.block_size
     ncb = S // C
-    plat = mesh.devices.flat[0].platform
-    if use_pallas is None:
-        use_pallas = plat == "tpu" and _pallas_geom_ok(config.arity, S, C)
-    if use_pallas and not _pallas_geom_ok(config.arity, S, C):
-        from data_compression_tpu.models.huffman import _note_pallas_fallback
-
-        _note_pallas_fallback(
-            "sharded encode",
-            [f"geometry (arity {config.arity}, block {S}, chunk {C})"],
-        )
-        use_pallas = False
+    ndev = mesh.devices.size
 
     blocks, lengths = framing.split_blocks(data, S)
     B_real = blocks.shape[0]
     if B_real == 0:
         return framing.pack_frame(
-            config.codec_id, config.arity, S, 0, [], [], [], [], None
+            config.codec_id, arity, S, 0, [], [], [], [], None,
+            chunk_log2=C.bit_length() - 1,
         )
-    blocks, lengths, _ = _pad_blocks(blocks, lengths, mesh.devices.size)
+    blocks, lengths, _ = _pad_blocks(blocks, lengths, ndev)
     B = blocks.shape[0]
 
-    hist_step = make_sharded_hist_step(mesh)
-    step = make_sharded_encode_step(mesh, config.arity, C)
     dp = NamedSharding(mesh, P("data", None))
     rep = NamedSharding(mesh, P())
-    blocks_d = jax.device_put(jnp.asarray(blocks), dp)
-    lengths_d = jax.device_put(jnp.asarray(lengths, jnp.int32), rep)
-
-    hists, ghist = hist_step(blocks_d, lengths_d)
+    cs = NamedSharding(mesh, P(CHUNKS))
+    blocks_d = jax.device_put(blocks, dp)
+    hists, ghist = make_sharded_hist_step(mesh)(
+        blocks_d, jax.device_put(lengths.astype(np.int32), rep)
+    )
     hists = np.asarray(hists).astype(np.int64)
 
     if config.shared_table:
-        table = lengths_to_codes(
-            capped_lengths(np.asarray(ghist, np.int64), config.arity), config.arity
-        )
-        tables = [table] * B
-        shared_bytes = table.to_bytes()
+        row = hb.capped_lengths_batch(np.asarray(ghist, np.int64)[None], arity)
+        tb = hb.codes_batch(np.tile(row, (B, 1)), arity)
+        shared_bytes = row[0].astype(np.uint8).tobytes()
     else:
-        tables = [
-            lengths_to_codes(capped_lengths(hists[i], config.arity), config.arity)
-            for i in range(B)
-        ]
+        tb = hb.codes_batch(hb.capped_lengths_batch(hists, arity), arity)
         shared_bytes = None
+    pt, bt = hb.packed_rows(tb)
 
-    if use_pallas:
-        from data_compression_tpu.config import ARITY_DIGITS_PER_BYTE
-        from data_compression_tpu.ops.pallas.encode_kernel import (
-            LANES,
-            MAXLEN_BUCKETS,
-            prep_tables,
-        )
+    # per-device capacity: the histogram bound of every block a
+    # device's chunk range touches
+    D = ARITY_DIGITS_PER_BYTE[arity]
+    block_bound = -(-(hists * tb.lengths.astype(np.int64)).sum(axis=1) // D) + ncb
+    per_dev = B * ncb // ndev
+    first = np.arange(ndev) * per_dev // ncb
+    last = ((np.arange(ndev) + 1) * per_dev - 1) // ncb
+    csum = np.concatenate([[0], np.cumsum(block_bound)])
+    cap = round_cap(int((csum[last + 1] - csum[first]).max()))
 
-        dense, count = prep_tables(tables, config.arity)
-        meta = np.stack(
-            [count, np.asarray(lengths, np.int32)], axis=1
-        ).astype(np.int32)
-        actual_max = max(int(t.max_len) for t in tables)
-        maxlen = min(
-            next(
-                (m for m in MAXLEN_BUCKETS if m >= actual_max),
-                ARITY_MAX_LEN[config.arity],
-            ),
-            ARITY_MAX_LEN[config.arity],
-        )
-        step_p = make_shardmap_encode_step(
-            mesh, config.arity, maxlen, C, interpret=plat != "tpu"
-        )
-        dp1 = NamedSharding(mesh, P("data"))
-        syms_t = jnp.transpose(
-            jnp.asarray(blocks).reshape(B, LANES, C), (0, 2, 1)
-        )
-        byts, ndig = step_p(
-            jax.device_put(syms_t, dp1),
-            jax.device_put(jnp.asarray(dense), dp1),
-            jax.device_put(jnp.asarray(meta), dp1),
-        )
-        # ordered gather to host; rows past nbytes are undefined (the
-        # kernel's output contract) and sliced off below
-        packed = np.asarray(jnp.transpose(byts, (0, 2, 1)).reshape(B * LANES, -1))
-        total_digits = np.asarray(
-            jnp.transpose(ndig, (0, 2, 1)).reshape(B * LANES)
-        )
-        nbytes = -(-total_digits // ARITY_DIGITS_PER_BYTE[config.arity])
-    else:
-        from data_compression_tpu.ops.encode_fast import pack_encode_table
+    counts = np.clip(
+        lengths.astype(np.int64)[:, None] - np.arange(ncb)[None, :] * C, 0, C
+    ).reshape(-1)
+    step = make_sharded_encode_step(mesh, arity, C, cap)
+    flat_d, nbytes_d = step(
+        blocks_d.reshape(B * ncb, C),
+        jax.device_put(counts.astype(np.int32), cs),
+        jax.device_put(np.repeat(np.arange(B, dtype=np.int32), ncb), cs),
+        jax.device_put(pt, rep),
+        jax.device_put(bt, rep),
+    )
+    nb = np.asarray(nbytes_d).astype(np.int64)
+    dev_tot = nb.reshape(ndev, per_dev).sum(axis=1)
+    flat = np.concatenate(
+        [np.asarray(flat_d[d * cap : d * cap + int(dev_tot[d])])
+         for d in range(ndev)]
+    )
 
-        _pk_cache = {}
-
-        def _pk(t):
-            if id(t) not in _pk_cache:  # shared mode reuses one table object
-                _pk_cache[id(t)] = pack_encode_table(t)
-            return _pk_cache[id(t)]
-
-        pt, bt = zip(*[_pk(t) for t in tables])
-        packed_tab = jnp.asarray(np.stack(pt))
-        bits_tab = jnp.asarray(np.stack(bt))
-        packed, nbytes = step(blocks_d, lengths_d, packed_tab, bits_tab)
-        packed = np.asarray(packed)  # ordered gather to host
-        nbytes = np.asarray(nbytes)
-
-    payloads, raw_lens, crcs, flags = [], [], [], []
-    for i in range(B_real):
+    codec = HuffmanCodec(config)
+    payloads = codec._assemble_payloads(
+        flat, nb.reshape(B, ncb)[:B_real], lengths[:B_real].astype(np.int64),
+        tb,
+    )
+    crcs = crc32_blocks(blocks[:B_real], lengths[:B_real])
+    out_payloads, raw_lens, flags = [], [], []
+    for i, payload in enumerate(payloads):
         raw_len = int(lengths[i])
-        nc_real = max(1, -(-raw_len // C))
-        chunks = [
-            packed[i * ncb + c, : int(nbytes[i * ncb + c])].tobytes()
-            for c in range(nc_real)
-        ]
-        tb = None if config.shared_table else tables[i].to_bytes()
-        payload = _pack_payload(tb, chunks)
-        raw = blocks[i, :raw_len].tobytes()
-        crcs.append(crc32(raw))
         raw_lens.append(raw_len)
         if len(payload) >= raw_len:
-            payloads.append(raw)
+            out_payloads.append(blocks[i, :raw_len].tobytes())
             flags.append(framing.BLOCK_LITERAL)
         else:
-            payloads.append(payload)
+            out_payloads.append(payload)
             flags.append(0)
 
     return framing.pack_frame(
         config.codec_id,
-        config.arity,
+        arity,
         S,
         len(data),
-        payloads,
+        out_payloads,
         raw_lens,
-        crcs,
+        [int(c) for c in crcs],
         flags,
         shared_table=shared_bytes,
         chunk_log2=C.bit_length() - 1,
@@ -383,51 +232,33 @@ def decompress_sharded(
     data: bytes,
     config: Optional[CodecConfig] = None,
     mesh: Optional[Mesh] = None,
-    use_pallas: Optional[bool] = None,
 ) -> bytes:
-    """Multi-chip framed decompression (huffman codec).
-
-    ``use_pallas``: run the fused decode kernel per shard via shard_map
-    (None = auto: on when the mesh is TPU, arity is 2, and the geometry
-    fits; forced True on a CPU mesh uses interpret mode)."""
+    """Multi-device framed decompression (huffman codec)."""
     from data_compression_tpu import framing
+    from data_compression_tpu.huffman import batched as hb
     from data_compression_tpu.models.huffman import _unpack_payload
     from data_compression_tpu.utils.crc import crc32
+    from data_compression_tpu.utils.jit_cache import enable_persistent_cache
 
+    enable_persistent_cache()
     if mesh is None:
         from data_compression_tpu.parallel.mesh import make_mesh
 
         mesh = make_mesh()
+    ndev = mesh.devices.size
     frame = framing.unpack_frame(data)
     arity = frame.arity
     C = frame.chunk_syms or (config.chunk_syms if config else 4096)
     mb = max_chunk_bytes(C, arity)
-    from data_compression_tpu.ops.pallas.decode_kernel import DEC_ARITIES
-
-    plat = mesh.devices.flat[0].platform
-    geom = arity in DEC_ARITIES and _pallas_geom_ok(
-        arity, frame.block_size, C
-    )
-    if use_pallas is None:
-        use_pallas = plat == "tpu" and geom
-    if use_pallas and not geom:
-        from data_compression_tpu.models.huffman import _note_pallas_fallback
-
-        _note_pallas_fallback(
-            "sharded decode",
-            [f"geometry (arity {arity}, block {frame.block_size}, chunk {C})"],
-        )
-        use_pallas = False
 
     # Collect huffman-coded blocks (literal blocks pass through).
     entries = frame.entries
     out: List[Optional[bytes]] = [None] * len(entries)
-    flat_chunks: List[bytes] = []
-    flat_counts: List[int] = []
-    flat_tbl: List[int] = []
+    chunks_all: List[bytes] = []
+    counts: List[int] = []
+    tbl: List[int] = []
+    rows = []
     spans = []
-    tables = []
-    hblocks = []  # (entry index, chunk list, raw_len) per huffman block
     for i, e in enumerate(entries):
         if e.is_literal:
             out[i] = frame.payloads[i]
@@ -437,68 +268,57 @@ def decompress_sharded(
             tb = frame.shared_table
             if tb is None:
                 raise ValueError("stream requires shared table")
-        ti = len(tables)
-        tables.append(
-            lengths_to_codes(np.frombuffer(tb, np.uint8).astype(np.int32), arity)
-        )
-        counts = [
-            max(0, min(C, e.raw_len - c * C)) for c in range(max(1, -(-e.raw_len // C)))
+        cnt = [
+            max(0, min(C, e.raw_len - c * C))
+            for c in range(max(1, -(-e.raw_len // C)))
         ]
-        if len(chunks) != len(counts):
+        if len(chunks) != len(cnt):
             raise ValueError("chunk count mismatch")
-        spans.append((i, len(flat_chunks), len(chunks), e.raw_len))
-        hblocks.append((i, chunks, e.raw_len))
-        flat_chunks.extend(chunks)
-        flat_counts.extend(counts)
-        flat_tbl.extend([ti] * len(chunks))
+        if any(len(ch) > mb for ch in chunks):
+            raise ValueError("huffman chunk payload too large")
+        spans.append((i, len(chunks_all), len(chunks), e.raw_len))
+        tbl.extend([len(rows)] * len(chunks))
+        rows.append(np.frombuffer(tb, np.uint8))
+        chunks_all.extend(chunks)
+        counts.extend(cnt)
 
-    if flat_chunks and use_pallas:
-        from data_compression_tpu.ops.pallas import decode_kernel as dk
-
-        # pad the block list so the cell count divides the data axis
-        pb = [chunks for (_i, chunks, _rl) in hblocks]
-        btables = list(tables)
-        need = dk.G8 * mesh.devices.size
-        while len(pb) % need:
-            pb.append([])
-            btables.append(btables[0])
-        *args, nseg_cap = dk.prep_decode_inputs(pb, btables, C, arity=arity)
-        dp1 = NamedSharding(mesh, P("data"))
-        step_p = make_shardmap_decode_step(
-            mesh, C, interpret=plat != "tpu", nseg_cap=nseg_cap, arity=arity
-        )
-        out_dev = step_p(*[jax.device_put(a, dp1) for a in args])
-        arr = np.asarray(out_dev).reshape(-1, C, 128).transpose(0, 2, 1)
-        for k, (i, _chunks, raw_len) in enumerate(hblocks):
-            out[i] = arr[k].reshape(-1)[:raw_len].tobytes()
-    elif flat_chunks:
-        # Pad chunk count to the device count for even sharding.
-        N = len(flat_chunks)
-        Np = -(-N // mesh.devices.size) * mesh.devices.size
-        payload_arr = np.zeros((Np, mb), np.uint8)
-        for k, ch in enumerate(flat_chunks):
-            payload_arr[k, : len(ch)] = np.frombuffer(ch, np.uint8)
-        counts_arr = np.zeros(Np, np.int32)
-        counts_arr[:N] = flat_counts
+    if chunks_all:
+        N = len(chunks_all)
+        per_dev = -(-N // ndev)
+        Np = per_dev * ndev
+        nb = np.zeros(Np, np.int64)
+        nb[:N] = [len(ch) for ch in chunks_all]
+        flat = np.frombuffer(b"".join(chunks_all), np.uint8)
+        # device d's payload bytes in row d; starts relative to its row
+        ends = np.cumsum(nb)
+        starts = ends - nb
+        dev_first = starts[:: per_dev]
+        dev_len = ends[per_dev - 1 :: per_dev] - dev_first
+        width = max(1, int(dev_len.max()))
+        rows_flat = np.zeros((ndev, width), np.uint8)
+        for d in range(ndev):
+            seg = flat[dev_first[d] : dev_first[d] + dev_len[d]]
+            rows_flat[d, : seg.size] = seg
+        local_starts = starts - np.repeat(dev_first, per_dev)
+        cnt_arr = np.zeros(Np, np.int32)
+        cnt_arr[:N] = counts
         tbl_arr = np.zeros(Np, np.int32)
-        tbl_arr[:N] = flat_tbl
+        tbl_arr[:N] = tbl
 
-        dec = [build_decode_tables(t, pad_to=ARITY_MAX_LEN[arity]) for t in tables]
-        limit = np.stack([d["limit_scaled"] for d in dec]).astype(np.int32)
-        bmf = np.stack([d["base_minus_first"] for d in dec]).astype(np.int32)
-        symtab = np.stack([d["symbols"] for d in dec]).astype(np.int32)
-
-        step = make_sharded_decode_step(mesh, arity, C)
-        cs = NamedSharding(mesh, P(("data", "chunk"), None))
+        tbb = hb.tables_from_bytes(np.stack(rows), arity)
+        dr = hb.decode_rows(tbb, ARITY_MAX_LEN[arity])
+        cs = NamedSharding(mesh, P(CHUNKS))
         rep = NamedSharding(mesh, P())
+        step = make_sharded_decode_step(mesh, arity, C)
         syms = np.asarray(
             step(
-                jax.device_put(jnp.asarray(payload_arr), cs),
-                jax.device_put(jnp.asarray(counts_arr), rep),
-                jax.device_put(jnp.asarray(limit), rep),
-                jax.device_put(jnp.asarray(bmf), rep),
-                jax.device_put(jnp.asarray(symtab), rep),
-                jax.device_put(jnp.asarray(tbl_arr), rep),
+                jax.device_put(rows_flat, cs),
+                jax.device_put(local_starts.astype(np.int32), cs),
+                jax.device_put(cnt_arr, cs),
+                jax.device_put(tbl_arr, cs),
+                jax.device_put(dr["limit_scaled"].astype(np.int32), rep),
+                jax.device_put(dr["base_minus_first"].astype(np.int32), rep),
+                jax.device_put(dr["symbols"].astype(np.int32), rep),
             )
         )
         for i, start, nc, raw_len in spans:

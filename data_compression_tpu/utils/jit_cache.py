@@ -1,42 +1,43 @@
-"""Persistent-JIT-cache opt-in.
+"""Persistent compilation cache.
 
-The fused Pallas codecs cost minutes to compile on a real chip; the
-persistent compilation cache makes every process after the first start
-in milliseconds.  This is enabled LAZILY, the first time a Pallas
-kernel module is imported — never on bare ``import data_compression_tpu``
-— so merely importing the library leaves user-level jax configuration
-and process environment untouched.  Opt out by exporting
-``JAX_COMPILATION_CACHE_DIR=""`` (empty); an explicit non-empty user
-setting is honored as-is.
+Enabled lazily, on the first device compile of an encode or decode path,
+never on bare ``import data_compression_tpu``.  Where
+``JAX_COMPILATION_CACHE_DIR`` is set, JAX reads it itself and this module
+sets nothing.  Otherwise the cache lives in one fixed directory inside
+the checkout, ``.jax_cache/`` (git-ignored): the path is part of each
+entry's key, so it never depends on a temporary name, a pid or the time.
 """
 
 from __future__ import annotations
 
 import os
+from typing import Optional
+
+ENV = "JAX_COMPILATION_CACHE_DIR"
+CHECKOUT_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    ".jax_cache",
+)
 
 _done = False
 
 
-def enable_persistent_cache() -> None:
-    """Point jax's persistent compilation cache at a per-user dir.
+def cache_dir() -> Optional[str]:
+    """Directory this module points JAX at: None when the environment
+    variable names one (JAX then uses it as it stands)."""
+    return None if ENV in os.environ else CHECKOUT_DIR
 
-    Idempotent, best-effort; respects an explicit user setting of
-    JAX_COMPILATION_CACHE_DIR (including the empty string as opt-out).
-    """
+
+def enable_persistent_cache() -> None:
+    """Idempotent; call before the first device compile."""
     global _done
     if _done:
         return
     _done = True
-    env = os.environ.get("JAX_COMPILATION_CACHE_DIR")
-    if env == "":
-        return  # explicit opt-out
-    cache_dir = env or os.path.join(
-        os.path.expanduser("~"), ".cache", "data_compression_tpu", "jit"
-    )
-    try:
-        import jax
+    d = cache_dir()
+    if d is None:
+        return
+    import jax
 
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:  # pragma: no cover - cache is best-effort
-        pass
+    jax.config.update("jax_compilation_cache_dir", d)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)

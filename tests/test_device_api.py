@@ -1,5 +1,6 @@
-"""Device-resident pipeline (device_api.py) — interpret-mode roundtrip
-on the CPU mesh, wire-parity against the host encoder."""
+"""Device-resident pipeline (device_api.py) on the CPU's XLA route:
+wire parity against the host encoder and the round trip, at n = 2, 3,
+16."""
 
 import numpy as np
 import pytest
@@ -12,82 +13,58 @@ from data_compression_tpu.huffman import batched as hb
 from data_compression_tpu.models.huffman import HuffmanCodec
 from tests.conftest import ascii_text
 
+S = 128 * 128  # chunk_syms=128: 128 chunks per block
 
-@pytest.mark.parametrize("arity", [2, 16])
-def test_compress_device_wire_parity(rng, arity):
-    """One-dispatch device compress emits the same wire bytes as the
-    host encoder (tables built on device, bit-identical)."""
-    S = 128 * 128  # chunk_syms=128, smallest pallas geometry
+
+def _blocks(rng):
     data = ascii_text(rng, S + S // 2)
     blocks = np.zeros((2, S), np.uint8)
-    flat_arr = np.frombuffer(data, np.uint8)
-    blocks.reshape(-1)[: flat_arr.size] = flat_arr
-    raw_lens = np.asarray([S, S // 2], np.int64)
+    blocks.reshape(-1)[: len(data)] = np.frombuffer(data, np.uint8)
+    return blocks, np.asarray([S, S // 2], np.int64)
 
+
+def _config(arity, **kw):
+    return CodecConfig(codec="huffman", arity=arity, block_size=S,
+                       chunk_syms=128, **kw)
+
+
+@pytest.mark.parametrize("arity", [2, 3, 16])
+def test_compress_device_wire_parity(rng, arity):
+    """Device compress emits the same wire bytes as the host encoder
+    (tables built on device, bit-identical)."""
+    blocks, raw_lens = _blocks(rng)
     dc = device_api.compress_blocks_device(
-        jnp.asarray(blocks),
-        raw_lens,
-        CodecConfig(codec="huffman", arity=arity, block_size=S, chunk_syms=128),
-        interpret=True,
+        jnp.asarray(blocks), raw_lens, _config(arity)
     )
-    nb = np.asarray(dc.nb).astype(np.int64)
-    flat = np.asarray(dc.flat)[: int(nb.sum())]
-    rows = np.asarray(dc.table_lengths)
-
-    # host reference: same tables, same chunk payloads
-    cfg = CodecConfig(
-        codec="huffman", arity=arity, block_size=S, chunk_syms=128,
-        use_device=False,
-    )
-    codec = HuffmanCodec(cfg)
+    flat = np.asarray(dc.flat)[: dc.total_bytes()]
     hists = np.stack(
         [np.bincount(blocks[i, : raw_lens[i]], minlength=256) for i in range(2)]
     ).astype(np.int64)
     tb = hb.codes_batch(hb.capped_lengths_batch(hists, arity), arity)
-    assert np.array_equal(rows, tb.table_bytes())
+    assert np.array_equal(np.asarray(dc.table_lengths), tb.table_bytes())
+    codec = HuffmanCodec(_config(arity, use_device=False))
     chunk_payloads = codec._encode_host(blocks, raw_lens, tb)
     want = b"".join(b"".join(chunks) for chunks in chunk_payloads)
     assert flat.tobytes() == want
 
 
-def test_decode_device_roundtrip(rng):
-    """compress_blocks_device -> decode_blocks_device roundtrip, all
-    tables derived on device (interpret mode)."""
-    S = 128 * 128
-    G8 = 8
-    data = ascii_text(rng, 2 * S)
-    blocks = np.frombuffer(data, np.uint8).reshape(2, S).copy()
-    raw_lens = np.asarray([S, S], np.int64)
+@pytest.mark.parametrize("arity", [2, 3, 16])
+def test_decode_device_roundtrip(rng, arity):
+    """compress_blocks_device -> decompress_blocks_device, all tables
+    derived on device; bytes past a block's raw length decode to 0."""
+    blocks, raw_lens = _blocks(rng)
     dc = device_api.compress_blocks_device(
-        jnp.asarray(blocks), raw_lens,
-        CodecConfig(codec="huffman", arity=2, block_size=S, chunk_syms=128),
-        interpret=True,
+        jnp.asarray(blocks), raw_lens, _config(arity)
     )
-    from data_compression_tpu.ops.pallas import decode_kernel as dk
+    out = np.asarray(device_api.decompress_blocks_device(dc))
+    assert np.array_equal(out, blocks)
 
-    _, _, mbp, _, _ = dk._geom(128)
-    nb = np.asarray(dc.nb).astype(np.int64)
-    flat = np.asarray(dc.flat)[: int(nb.sum())]
-    B = 2
-    NC = 1
-    BP = NC * G8
-    nb_full = np.zeros((BP, 128), np.int64)
-    nb_full[:B] = nb
-    pay = np.zeros((BP * 128, mbp), np.uint8)
-    pay[np.arange(mbp)[None, :] < nb_full.reshape(-1)[:, None]] = flat
-    payload_t = jnp.asarray(
-        np.ascontiguousarray(
-            pay.reshape(NC, G8, 128, mbp).transpose(0, 3, 1, 2)
-        ).reshape(NC, mbp * G8, 128)
+
+def test_decode_device_kernel_interpret(rng):
+    """The same round trip through the GPU kernel in the interpreter."""
+    blocks, raw_lens = _blocks(rng)
+    dc = device_api.compress_blocks_device(
+        jnp.asarray(blocks), raw_lens, _config(3)
     )
-    meta = np.zeros((NC, 1, 2), np.int32)
-    meta[:, 0, 0] = max(1, -(-int(nb_full.max()) * 8 // dk.SEG))
-    rows_full = np.zeros((BP, 256), np.uint8)
-    rows_full[:B] = np.asarray(dc.table_lengths)
-    out = device_api.decode_blocks_device(
-        payload_t, jnp.asarray(rows_full), jnp.asarray(meta),
-        arity=2, chunk_syms=128, interpret=True,
-    )
-    arr = np.asarray(out).reshape(-1, 128, 128).transpose(0, 2, 1)
-    got = b"".join(arr[b].reshape(-1)[: int(raw_lens[b])].tobytes() for b in range(B))
-    assert got == data
+    out = device_api.decompress_blocks_device(dc, interpret=True)
+    assert np.array_equal(np.asarray(out), blocks)

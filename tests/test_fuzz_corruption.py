@@ -164,7 +164,7 @@ def test_bitflip_device_parse_path(rng):
     from data_compression_tpu.config import CodecConfig
 
     cfg = CodecConfig(codec="huffman", arity=2, block_size=4096,
-                      chunk_syms=512, use_device=True, use_pallas=False)
+                      chunk_syms=512, use_device=True)
     letters = np.frombuffer(b" etaoinshrdlcu.,\n", np.uint8)
     data = rng.choice(letters, size=3 * 4096 + 99).tobytes()
     blob = bytearray(compress(data, cfg))

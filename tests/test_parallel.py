@@ -1,6 +1,6 @@
-"""Sharded pipeline on the virtual 8-device CPU mesh: 1-D and 2-D mesh
+"""Sharded pipeline on the virtual CPU mesh: 1-D and 2-D mesh
 round-trips, equivalence with the single-device stream, shared-table
-all-reduce."""
+all-reduce, and the 4-device mesh of a four-card host."""
 
 import jax
 import numpy as np
@@ -69,33 +69,14 @@ def test_sharded_ragged_tail(rng):
     assert decompress_sharded(out, CodecConfig(chunk_syms=512), mesh) == data
 
 
-def test_shardmap_pallas_paths_match_xla(data):
-    """The shard_map variant (fused Pallas kernels per shard, interpret
-    mode on the CPU mesh) must produce the byte-identical frame and
-    round-trip.  Geometry: 16 KiB blocks = 128 lane-chunks of 128."""
-    mesh = make_mesh(shape=(8, 1))
-    cfg = CodecConfig(codec="huffman", arity=2, block_size=16384,
-                      chunk_syms=128)
-    via_xla = compress_sharded(data, cfg, mesh, use_pallas=False)
-    via_pallas = compress_sharded(data, cfg, mesh, use_pallas=True)
-    assert via_pallas == via_xla
-    back = decompress_sharded(via_pallas, CodecConfig(chunk_syms=128), mesh,
-                              use_pallas=True)
-    assert back == data
-
-
-def test_shardmap_pallas_bad_geometry_falls_back(data, caplog):
-    """A geometry the fused kernels can't take must warn and still
-    produce a correct stream via the XLA path."""
-    import logging
-
-    from data_compression_tpu.models import huffman as hmod
-
-    hmod._fallback_warned.clear()
-    mesh = make_mesh(shape=(8, 1))
-    cfg = CodecConfig(codec="huffman", arity=2, block_size=8192,
-                      chunk_syms=1024)
-    with caplog.at_level(logging.WARNING, logger="data_compression_tpu"):
-        out = compress_sharded(data, cfg, mesh, use_pallas=True)
-    assert any("sharded encode" in r.message for r in caplog.records)
-    assert decompress_sharded(out, CodecConfig(chunk_syms=1024), mesh) == data
+@pytest.mark.parametrize("arity,shared", [(2, False), (3, True), (16, False)])
+def test_sharded_four_device_mesh(data, arity, shared):
+    """The (4, 1) mesh of a four-card host: the stream equals the
+    single-device api.compress stream and decodes back, per-block and
+    shared-table (the histogram all-reduce) modes."""
+    mesh = make_mesh(shape=(4, 1), devices=jax.devices()[:4])
+    cfg = CodecConfig(codec="huffman", arity=arity, block_size=8192,
+                      chunk_syms=512, shared_table=shared)
+    out = compress_sharded(data, cfg, mesh)
+    assert out == compress(data, cfg)
+    assert decompress_sharded(out, CodecConfig(chunk_syms=512), mesh) == data

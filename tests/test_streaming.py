@@ -1,5 +1,5 @@
 """Streaming IO: bounded-memory compress/decompress over frame
-concatenations (api.compress_stream / decompress_stream), the TPU-era
+concatenations (api.compress_stream / decompress_stream), the
 analogue of the reference's 65,000-byte stdin loop
 (n_ary_huffman.c:2508-2580, load_more_text :1260-1294)."""
 

@@ -94,14 +94,15 @@ def test_codes_batch_kraft_violation(rng):
         hb.codes_batch(bad, 2)
 
 
-@pytest.mark.parametrize("arity", [2, 16])
-def test_dense_rows_matches_prep_tables(rng, arity):
-    from data_compression_tpu.ops.pallas.encode_kernel import prep_tables
+@pytest.mark.parametrize("arity", [2, 3, 16])
+def test_packed_rows_matches_pack_encode_table(rng, arity):
+    from data_compression_tpu.ops.encode_fast import pack_encode_table
 
     hists = _hist_suite(rng, n=18)
     lens = hb.capped_lengths_batch(hists, arity)
     tb = hb.codes_batch(lens, arity)
-    tables = [lengths_to_codes(lens[i], arity) for i in range(lens.shape[0])]
-    dense, count = prep_tables(tables, arity)
-    assert np.array_equal(hb.dense_rows(tb), dense)
-    assert np.array_equal(tb.n_used, count)
+    pt, bt = hb.packed_rows(tb)
+    for i in range(lens.shape[0]):
+        p1, b1 = pack_encode_table(lengths_to_codes(lens[i], arity))
+        assert np.array_equal(pt[i], p1)
+        assert np.array_equal(bt[i], b1)

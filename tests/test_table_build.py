@@ -1,5 +1,5 @@
 """On-device table construction (ops/table_build.py) vs the host
-builders: bit-identical lengths, dense rows, and decode tables."""
+tables: bit-identical lengths, encode tables, and decode tables."""
 
 import numpy as np
 import pytest
@@ -30,9 +30,10 @@ def test_device_tables_match_host(rng, arity):
     tb = hb.codes_batch(lens, arity)
     L = ARITY_MAX_LEN[arity]
 
-    dense_d, n_used = tbd.encode_tables_device(jnp.asarray(lens), arity)
-    assert np.array_equal(np.asarray(dense_d), hb.dense_rows(tb))
-    assert np.array_equal(np.asarray(n_used), tb.n_used)
+    packed_d, bits_d = tbd.encode_tables_device(jnp.asarray(lens), arity)
+    pt, bt = hb.packed_rows(tb)
+    assert np.array_equal(np.asarray(packed_d), pt)
+    assert np.array_equal(np.asarray(bits_d), bt)
 
     dr = hb.decode_rows(tb, L)
     lim, bmf, syms = tbd.decode_tables_device(jnp.asarray(lens), arity, L)

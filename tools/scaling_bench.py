@@ -16,8 +16,8 @@ are equal across topologies and the ratio isolates PROTOCOL overhead
 instead of core contention (round-3 harness lacked pinning and
 measured 0.28 that was mostly timeslicing).  Each worker also reports
 its compute vs collective split (the final all-gather), so a low
-efficiency is attributable.  On a real v5e-16 the same harness
-measures ICI/DCN overhead honestly.
+efficiency is attributable.  On a real multi-host cluster the same
+harness measures the interconnect overhead.
 
 Writes SCALING.json at the repo root.
 """
